@@ -10,7 +10,7 @@ north star ("train + posterior-grid at N=20k"):
       (reference/PhysicalExperimentCode/exploreExpSettings.py:170-173)
 
 on the flagship 3-fidelity AR1 MFGP with D=3 inputs, synthetic
-fidelity-binned WRBF data. TPU path: f32 with HIGHEST-precision matmuls,
+fidelity-binned WRBF data. Device path: f32 with HIGHEST-precision matmuls,
 jitted end to end. Baseline: the same mathematics in NumPy/scipy f64
 (vectorised kernel assembly, cho_factor/cho_solve, analytic trace-identity
 gradients — GPy-class CPU code) on this host.
@@ -21,7 +21,7 @@ the exact NumPy unit at N=20000, M=10571 on this (single-core) host —
 scaling points for sanity.
 
 Prints ONE JSON line:
-  {"metric": ..., "value": <unit seconds on TPU>, "unit": "s",
+  {"metric": ..., "value": <unit seconds on the device>, "unit": "s",
    "vs_baseline": <baseline_seconds / value>}
 """
 
@@ -40,7 +40,7 @@ import numpy as np
 # Overridden by --baseline-seconds.
 BASELINE_CPU_SECONDS = 2764.3
 # NLML value of that same measured f64 baseline run (the cross-check that
-# makes the speedup provably same-answer: the TPU unit must reproduce it).
+# makes the speedup provably same-answer: the device unit must reproduce it).
 BASELINE_CPU_NLML = 6969.5
 # Same-unit matern32 baseline: one full N=20000 f64 run on this host
 # (run_numpy_unit(N_TRAIN, M_GRID, kernel="matern32"), idle 1-core host,
@@ -84,13 +84,13 @@ def _theta(D=D_IN, dtype=np.float64):
 
 
 # ---------------------------------------------------------------------------
-# TPU unit
+# Device unit
 # ---------------------------------------------------------------------------
-def run_tpu(N, M, repeats=3, fast=False, kernel="rbf"):
+def run_device(N, M, repeats=3, fast=False, kernel="rbf"):
     import jax
     import jax.numpy as jnp
 
-    from mfgp_tpu.models import mfgp as mf
+    from mfgp_jax.models import mfgp as mf
 
     X, fid, y, grid, grid_fid = build_problem(N, M)
     v, l, r, nz = _theta()
@@ -109,32 +109,17 @@ def run_tpu(N, M, repeats=3, fast=False, kernel="rbf"):
     # analytic trace-identity gradient + conditioned state from ONE
     # factorization (the NumPy baseline also factorizes once). The state
     # carries the explicit inverse factor L^-1 (computed for the gradient's
-    # K^-1 anyway), so the posterior's substitutions become pure MXU
+    # K^-1 anyway), so the posterior's substitutions become plain
     # matmuls — see models/mfgp.nlml_value_grad_state_inv /
-    # predict_blocked_inv. The Pallas syrk+grad kernel never materialises
-    # K^-1 to HBM, so a single fused launch now FITS at N=20k (it OOM'd in
-    # r2) — measured 0.618 s vs 0.611 for the two-launch split, so the
-    # split is kept (XLA schedules the smaller programs no worse, and the
-    # warm per-phase sub-metrics below come free).
+    # predict_blocked_inv.
     mode = "high" if fast else "highest"
     vgs = jax.jit(
         lambda p: mf.nlml_value_grad_state_inv(p, Xj, fj, yj,
                                                kernel=kernel, jitter=1e-6,
                                                inv_mode=mode))
-    # posterior: the fully-fused Pallas pass (K* and V never exist in HBM,
-    # triangular-aware FLOPs) when the Pallas stack applies; the blocked
-    # MXU-matmul path otherwise (and at --fast, whose "high"-precision
-    # matmuls the fused kernel deliberately doesn't offer).
-    from mfgp_tpu.ops.covariance import use_pallas
-
-    if not fast and use_pallas(Xj.dtype, kernel):
-        post = jax.jit(
-            lambda p, s: mf.predict_fused(p, s, gj, gfj, kernel=kernel))
-    else:
-        post = jax.jit(
-            lambda p, s: mf.predict_blocked_inv(p, s, gj, gfj,
-                                                kernel=kernel,
-                                                precision=mode))
+    post = jax.jit(
+        lambda p, s: mf.predict_blocked_inv(p, s, gj, gfj, kernel=kernel,
+                                            precision=mode))
 
     def unit():
         val, g, state = vgs(params)
@@ -142,7 +127,7 @@ def run_tpu(N, M, repeats=3, fast=False, kernel="rbf"):
         jax.block_until_ready((val, g, mu, var))
         return float(val)
 
-    nlml_tpu = unit()  # compile + warm
+    nlml_device = unit()  # compile + warm
     times = []
     for _ in range(repeats):
         t0 = time.perf_counter()
@@ -151,8 +136,8 @@ def run_tpu(N, M, repeats=3, fast=False, kernel="rbf"):
 
     # tracked sub-metrics (BASELINE.md): N=20k Cholesky time, posterior
     # grid points/sec (measured on the same warm executables)
-    from mfgp_tpu.models.mfgp import _assemble_noisy_cov
-    from mfgp_tpu.ops import linalg as _la
+    from mfgp_jax.models.mfgp import _assemble_noisy_cov
+    from mfgp_jax.ops import linalg as _la
 
     chol_fn = jax.jit(
         lambda p: _la.chol(_assemble_noisy_cov(p, Xj, fj, 1e-6, kernel)))
@@ -169,7 +154,7 @@ def run_tpu(N, M, repeats=3, fast=False, kernel="rbf"):
 
     return {
         "seconds": min(times),
-        "nlml_tpu": nlml_tpu,
+        "nlml_device": nlml_device,
         "chol_seconds": chol_s,
         "grid_points_per_sec": M / post_s,
     }
@@ -186,7 +171,7 @@ PLAN_ITERS = 200
 PLAN_LANES = 8
 
 
-def run_planner_tpu(repeats=3, iters=PLAN_ITERS, lanes=PLAN_LANES,
+def run_planner(repeats=3, iters=PLAN_ITERS, lanes=PLAN_LANES,
                     seed=0):
     """Wall-clock of (a) ONE 200-iteration DeviceRIG launch and (b) an
     ``lanes``-lane ``plan_batch`` fleet launch, at SIM-DEFAULT settings
@@ -195,9 +180,9 @@ def run_planner_tpu(repeats=3, iters=PLAN_ITERS, lanes=PLAN_LANES,
     included: this is the serving-relevant replan latency."""
     import jax
 
-    from mfgp_tpu.metrics.eid import eid_grid
-    from mfgp_tpu.planning.rig_device import DeviceRIG
-    from mfgp_tpu.utils.configs import SimConfig
+    from mfgp_jax.metrics.eid import eid_grid
+    from mfgp_jax.planning.rig_device import DeviceRIG
+    from mfgp_jax.utils.configs import SimConfig
 
     cfg_s = SimConfig()
     grid = np.asarray(eid_grid([list(b) for b in cfg_s.WS],
@@ -287,18 +272,23 @@ def _np_base_kernels(X1, X2, lengthscales, kernel="rbf"):
     return Ks, Es
 
 
-def run_numpy_unit(N, M, seed=0, kernel="rbf"):
-    """One NLML+grad + condition + grid posterior, NumPy/scipy f64."""
-    from scipy.linalg import cho_factor, cho_solve, solve_triangular
+def numpy_unit(X, fid, y, grid, grid_fid, kernel="rbf"):
+    """One NLML+grad + condition + grid posterior, NumPy/scipy f64.
 
-    X, fid, y, grid, grid_fid = build_problem(N, M)
-    X = X.astype(np.float64)
-    y = y.astype(np.float64)
-    grid = grid.astype(np.float64)
-    variances, lengthscales, rhos, noises = _theta()
+    The plain reference the device unit is checked against. Returns a dict
+    with ``nlml``; ``grad``, the NLML gradient w.r.t. the LOG
+    hyperparameters in MFGPParams order (log variances (F,), log
+    lengthscales (F, D), log noises (F,); rhos are held fixed); and the
+    posterior ``mu``/``var`` (noise included) on the grid."""
+    from scipy.linalg import cho_factor, cho_solve
+
+    X = np.asarray(X, np.float64)
+    y = np.asarray(y, np.float64)
+    grid = np.asarray(grid, np.float64)
+    N, D = X.shape
+    variances, lengthscales, rhos, noises = _theta(D)
     F = N_FID
 
-    t0 = time.perf_counter()
     W = _np_ar1_weights(rhos, F)
     Ks, Es = _np_base_kernels(X, X, lengthscales, kernel)
     K = np.zeros((N, N))
@@ -317,34 +307,86 @@ def run_numpy_unit(N, M, seed=0, kernel="rbf"):
     # gradient via trace identities: dL/dth = 0.5 tr((Kinv - aa^T) dK/dth)
     Kinv = cho_solve(cf, np.eye(N))
     Wmat = Kinv - np.outer(alpha, alpha)
-    grads = []
+    g_var = np.zeros(F)
+    g_ls = np.zeros((F, D))
     for m in range(F):
         w = W[m][fid]
         ww = w[:, None] * w[None, :]
-        dK_dvar = ww * Ks[m]
-        grads.append(0.5 * np.sum(Wmat * dK_dvar))
+        g_var[m] = 0.5 * np.sum(Wmat * (ww * Ks[m]))
         base = variances[m] * ww * Es[m]
-        for d in range(D_IN):
+        for d in range(D):
             diff = (X[:, d][:, None] - X[:, d][None, :]) ** 2
             dK_dl = base * diff / lengthscales[m, d] ** 3
-            grads.append(0.5 * np.sum(Wmat * dK_dl))
-    for f in range(F):
-        mask = (fid == f).astype(np.float64)
-        grads.append(0.5 * np.sum(np.diag(Wmat) * mask))
+            g_ls[m, d] = 0.5 * np.sum(Wmat * dK_dl)
+    g_noise = np.array([0.5 * np.sum(np.diag(Wmat) * (fid == f))
+                        for f in range(F)])
+    # chain rule to the log parametrization the models optimize
+    grad = np.concatenate([g_var * variances,
+                           (g_ls * lengthscales).reshape(-1),
+                           g_noise * noises])
 
     # condition + posterior grid (mean + marginal variance)
-    Kxs_parts, _ = _np_base_kernels(grid, X, lengthscales, kernel)
-    Kxs = np.zeros((M, N))
+    mu, var = _np_posterior_from_factor(
+        L, alpha, X, fid, grid, grid_fid, variances, lengthscales, rhos,
+        noises, kernel)
+    return dict(nlml=float(nlml), grad=grad, mu=mu, var=var)
+
+
+def _np_ar1_cov(X1, fid1, X2, fid2, variances, lengthscales, rhos,
+                kernel="rbf"):
+    """Dense AR1 covariance between labelled point sets, NumPy f64."""
+    F = variances.shape[0]
+    W = _np_ar1_weights(rhos, F)
+    Ks, _ = _np_base_kernels(X1, X2, lengthscales, kernel)
+    K = np.zeros((X1.shape[0], X2.shape[0]))
     for m in range(F):
-        w1 = W[m][grid_fid]
-        w2 = W[m][fid]
-        Kxs += variances[m] * (w1[:, None] * w2[None, :]) * Kxs_parts[m]
+        K += (variances[m] * (W[m][fid1][:, None] * W[m][fid2][None, :])
+              * Ks[m])
+    return K
+
+
+def _np_posterior_from_factor(L, alpha, X, fid, Xs, fid_s, variances,
+                              lengthscales, rhos, noises, kernel):
+    from scipy.linalg import solve_triangular
+
+    Kxs = _np_ar1_cov(Xs, fid_s, X, fid, variances, lengthscales, rhos,
+                      kernel)
     mu = Kxs @ alpha
     V = solve_triangular(L, Kxs.T, lower=True)
-    kss = np.sum((W[:, N_FID - 1] ** 2) * variances)
-    var = kss - np.sum(V * V, axis=0) + noises[-1]
+    W = _np_ar1_weights(rhos, variances.shape[0])
+    kss = np.sum((W[:, fid_s] ** 2) * variances[:, None], axis=0)
+    return mu, kss - np.sum(V * V, axis=0) + noises[fid_s]
+
+
+def numpy_posterior(X, fid, y, Xs, fid_s, variances, lengthscales, rhos,
+                    noises, kernel="rbf", jitter=1e-6):
+    """AR1 MFGP posterior mean/variance (noise included), NumPy/scipy f64
+    — the plain reference for a model conditioned from scratch."""
+    from scipy.linalg import cho_factor, cho_solve
+
+    X, Xs = np.asarray(X, np.float64), np.asarray(Xs, np.float64)
+    fid, fid_s = np.asarray(fid, int), np.asarray(fid_s, int)
+    variances, lengthscales, rhos, noises = (
+        np.asarray(a, np.float64)
+        for a in (variances, lengthscales, rhos, noises))
+    Kn = _np_ar1_cov(X, fid, X, fid, variances, lengthscales, rhos, kernel)
+    Kn += np.diag(noises[fid] + jitter)
+    cf = cho_factor(Kn, lower=True)
+    alpha = cho_solve(cf, np.asarray(y, np.float64))
+    return _np_posterior_from_factor(
+        np.tril(cf[0]), alpha, X, fid, Xs, fid_s, variances, lengthscales,
+        rhos, noises, kernel)
+
+
+def run_numpy_unit(N, M, seed=0, kernel="rbf"):
+    """Timed NumPy/scipy f64 unit on the bench problem: (seconds, nlml,
+    sum of posterior means, sum of posterior variances)."""
+    X, fid, y, grid, grid_fid = build_problem(N, M, seed=seed)
+    t0 = time.perf_counter()
+    r = numpy_unit(X, fid, y, grid, grid_fid, kernel=kernel)
     elapsed = time.perf_counter() - t0
-    return elapsed, float(nlml), float(np.sum(mu)), float(np.sum(var))
+    return (elapsed, r["nlml"], float(np.sum(r["mu"])),
+            float(np.sum(r["var"])))
 
 
 def calibrate(ns=(2000, 3000, 4000, 6000), m=M_GRID, kernel="rbf"):
@@ -373,10 +415,9 @@ def main():
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--kernel", default="rbf",
                     choices=("rbf", "matern32"),
-                    help="base kernel for the measured unit (matern32 "
-                         "rides the same fused Pallas stack since r3; "
-                         "both kernels have a recorded-NLML cross-check "
-                         "at the default N)")
+                    help="base kernel for the measured unit (both "
+                         "kernels have a recorded-NLML cross-check at the "
+                         "default N)")
     ap.add_argument("--fast", action="store_true",
                     help="HIGH-precision matmuls on the K^-1/posterior "
                          "phases (~5e-2 max posterior-variance rel err vs "
@@ -393,12 +434,10 @@ def main():
                     help="skip the matern32-unit sub-metrics in the "
                          "default line (the physical drivers' kernel, "
                          "reference/PhysicalExperimentCode/"
-                         "GraceExplorationExperiments_SFGP.py:610-615; "
-                         "tracked so BENCH_r*.json catches regressions "
-                         "on it)")
+                         "GraceExplorationExperiments_SFGP.py:610-615)")
     args = ap.parse_args()
 
-    from mfgp_tpu.utils.cache import enable_compilation_cache
+    from mfgp_jax.utils.cache import enable_compilation_cache
 
     enable_compilation_cache()
 
@@ -407,7 +446,7 @@ def main():
         return
 
     if args.planner:
-        p = run_planner_tpu(repeats=args.repeats)
+        p = run_planner(repeats=args.repeats)
         print(json.dumps({
             "metric": "device_planner_200iter_replan_wallclock",
             "value": round(p["plan_seconds"], 4), "unit": "s",
@@ -430,7 +469,7 @@ def main():
         # a same-unit baseline only: never report a matern32 speedup
         # against the rbf-measured constant
         baseline = BASELINE_CPU_SECONDS_MATERN32
-    stats = run_tpu(args.n, args.m, args.repeats, fast=args.fast,
+    stats = run_device(args.n, args.m, args.repeats, fast=args.fast,
                     kernel=args.kernel)
     value = stats["seconds"]
     out = {
@@ -448,34 +487,33 @@ def main():
     recorded_nlml = (BASELINE_CPU_NLML if args.kernel == "rbf"
                      else BASELINE_CPU_NLML_MATERN32)
     if args.n == N_TRAIN and recorded_nlml is not None:
-        # same-answer proof: the TPU f32 unit reproduces the measured f64
+        # same-answer proof: the device f32 unit reproduces the measured f64
         # NumPy baseline's NLML (the recorded value for this kernel)
-        out["nlml_tpu"] = round(stats["nlml_tpu"], 2)
+        out["nlml_device"] = round(stats["nlml_device"], 2)
         out["nlml_numpy_f64"] = recorded_nlml
         out["nlml_rel_err"] = round(
-            abs(stats["nlml_tpu"] - recorded_nlml)
+            abs(stats["nlml_device"] - recorded_nlml)
             / abs(recorded_nlml), 6)
     if args.kernel == "rbf" and not args.no_matern32:
         # the SECOND tracked kernel unit (the physical drivers' Matern32)
-        # rides the same line — one executable family, same N/M — so the
-        # driver's BENCH_r*.json records both kernels every round
+        # rides the same line — one executable family, same N/M
         try:
-            m32 = run_tpu(args.n, args.m, args.repeats, fast=args.fast,
+            m32 = run_device(args.n, args.m, args.repeats, fast=args.fast,
                           kernel="matern32")
             out["matern32_seconds"] = round(m32["seconds"], 4)
             out["matern32_vs_baseline"] = round(
                 BASELINE_CPU_SECONDS_MATERN32 / m32["seconds"], 2)
             if args.n == N_TRAIN:
                 out["matern32_nlml_rel_err"] = round(
-                    abs(m32["nlml_tpu"] - BASELINE_CPU_NLML_MATERN32)
+                    abs(m32["nlml_device"] - BASELINE_CPU_NLML_MATERN32)
                     / abs(BASELINE_CPU_NLML_MATERN32), 6)
         except Exception as e:  # noqa: BLE001 — never lose the headline
             out["matern32_error"] = repr(e)
     if not args.no_planner:
-        # planner sub-metrics ride the tracked line so regressions land
-        # in BENCH_r*.json (vs the reference's 45 s replan budget)
+        # planner sub-metrics ride the tracked line (vs the reference's
+        # 45 s replan budget)
         try:
-            p = run_planner_tpu(repeats=args.repeats)
+            p = run_planner(repeats=args.repeats)
             out["planner_replan_seconds"] = round(p["plan_seconds"], 4)
             out["planner_solo_onehot_seconds"] = round(
                 p["plan_solo_onehot_seconds"], 4)

@@ -1,6 +1,6 @@
 """Quickstart: the five workflows a reference user needs, end to end.
 
-Run on CPU (f64) by default; drop the two config lines to run on TPU.
+Run on CPU (f64) by default; drop the two config lines to run on the GPU.
 
     python examples/quickstart.py
 """
@@ -22,8 +22,8 @@ import numpy as np  # noqa: E402
 def example_sfgp():
     import jax.numpy as jnp
 
-    from mfgp_tpu.fields.wrbf import default_sim_field
-    from mfgp_tpu.models import GP
+    from mfgp_jax.fields.wrbf import default_sim_field
+    from mfgp_jax.models import GP
 
     rng = np.random.default_rng(0)
     field = default_sim_field([[0, 10], [0, 20]], 10.0)
@@ -40,8 +40,8 @@ def example_sfgp():
 def example_mfgp():
     import jax.numpy as jnp
 
-    from mfgp_tpu.fields.wrbf import default_sim_field
-    from mfgp_tpu.models import MFGP
+    from mfgp_jax.fields.wrbf import default_sim_field
+    from mfgp_jax.models import MFGP
 
     rng = np.random.default_rng(1)
     field = default_sim_field([[0, 10], [0, 20]], 10.0)
@@ -62,8 +62,8 @@ def example_mfgp():
 
 # 3. Offline pipeline: trajectory -> estimates -> GP dataset ----------------
 def example_pipeline(tmp="/tmp/mfgp_quickstart"):
-    from mfgp_tpu.data import Table, run_pipeline
-    from mfgp_tpu.utils.configs import SimConfig
+    from mfgp_jax.data import Table, run_pipeline
+    from mfgp_jax.utils.configs import SimConfig
 
     t = np.arange(0, 900, 0.1)
     traj = Table(["t", "x", "y", "z"], np.column_stack([
@@ -76,8 +76,8 @@ def example_pipeline(tmp="/tmp/mfgp_quickstart"):
 
 # 4. Closed-loop adaptive exploration (flagship) ----------------------------
 def example_explore():
-    from mfgp_tpu.sim import ExplorationSim
-    from mfgp_tpu.utils.configs import ExperimentConfig
+    from mfgp_jax.sim import ExplorationSim
+    from mfgp_jax.utils.configs import ExperimentConfig
 
     exp = ExperimentConfig(multi_fidelity=True, ergodic=True, B=20, BD=2)
     res = ExplorationSim(exp, seed=0, plan_iters=10).run()
@@ -88,7 +88,7 @@ def example_explore():
 
 # 5. Multi-chip sharded fit (runs on however many devices exist) ------------
 def example_sharded():
-    from mfgp_tpu.parallel import fit_sharded, make_mesh
+    from mfgp_jax.parallel import fit_sharded, make_mesh
 
     rng = np.random.default_rng(2)
     X = rng.uniform(0, 10, (120, 3))
@@ -105,9 +105,9 @@ def example_sharded():
 def example_device_planner():
     import jax
 
-    from mfgp_tpu.metrics.eid import eid_grid
-    from mfgp_tpu.planning.primitives import AgentConfig
-    from mfgp_tpu.planning.rig_device import DeviceRIG
+    from mfgp_jax.metrics.eid import eid_grid
+    from mfgp_jax.planning.primitives import AgentConfig
+    from mfgp_jax.planning.rig_device import DeviceRIG
 
     grid = np.asarray(eid_grid([[0, 10], [0, 20]], 5.0))
     eid = np.ones(grid.shape[0]) / grid.shape[0]
@@ -124,8 +124,8 @@ def example_device_planner():
 def example_mission():
     import jax.numpy as jnp
 
-    from mfgp_tpu.sim.mission_device import DeviceMission
-    from mfgp_tpu.utils.configs import ExperimentConfig
+    from mfgp_jax.sim.mission_device import DeviceMission
+    from mfgp_jax.utils.configs import ExperimentConfig
 
     exp = ExperimentConfig(B=24.0, BD=2, update_hyps=False,
                            multi_fidelity=False, ergodic=True)
@@ -145,8 +145,8 @@ def example_serving():
     import http.client
     import threading
 
-    from mfgp_tpu.models.gp import GP
-    from mfgp_tpu.serve import ModelRouter, ModelServer, make_http_server
+    from mfgp_jax.models.gp import GP
+    from mfgp_jax.serve import ModelRouter, ModelServer, make_http_server
 
     rng = np.random.default_rng(0)
     X = rng.uniform(0, 10, (30, 3))
@@ -168,8 +168,8 @@ def example_plan_service():
     import http.client
     import threading
 
-    from mfgp_tpu.models.gp import GP
-    from mfgp_tpu.serve import (ModelServer, PlannerService,
+    from mfgp_jax.models.gp import GP
+    from mfgp_jax.serve import (ModelServer, PlannerService,
                                 make_http_server)
 
     rng = np.random.default_rng(0)

@@ -2,7 +2,7 @@
 //
 // The framework's offline pipeline reads hundreds of numeric CSVs
 // (trajectory estimates at 36k rows, GP datasets, GPRes grids —
-// the Data/ schemas in mfgp_tpu/data/io.py). numpy.loadtxt parses these
+// the Data/ schemas in mfgp_jax/data/io.py). numpy.loadtxt parses these
 // through the Python tokenizer; this loader does one mmap-free pass with
 // strtod into a caller-owned buffer, ~10-40x faster on large files.
 //
@@ -15,7 +15,7 @@
 //   fastcsv_write(path, header, data, rows, cols, precision) -> 0/-1.
 //
 // Build: make -C native   (produces libfastcsv.so; loaded via ctypes by
-// mfgp_tpu/native.py, which falls back to numpy when absent).
+// mfgp_jax/native.py, which falls back to numpy when absent).
 
 #include <cctype>
 #include <cmath>

@@ -10,14 +10,14 @@ import os
 import numpy as np
 import pytest
 
-from mfgp_tpu.data import (Table, bin_fidelity, collect_results,
+from mfgp_jax.data import (Table, bin_fidelity, collect_results,
                            generate_estimates, generate_field_measurements,
                            load_gp_dataset, mean_metrics, run_pipeline,
                            summary)
-from mfgp_tpu.data.io import parse_mse, parse_mse_filename, save_mse
-from mfgp_tpu.data.trainers import evaluate_models, train_models
-from mfgp_tpu.fields.wrbf import parse_field_settings
-from mfgp_tpu.utils.configs import SimConfig
+from mfgp_jax.data.io import parse_mse, parse_mse_filename, save_mse
+from mfgp_jax.data.trainers import evaluate_models, train_models
+from mfgp_jax.fields.wrbf import parse_field_settings
+from mfgp_jax.utils.configs import SimConfig
 
 REF_GPDATA = ("/root/reference/Data/TrajectoriesAndEstimates/GPDataSets/"
               "GPData_0.2_fieldMeas_0_T0_0.csv")
@@ -83,7 +83,7 @@ def test_full_pipeline_roundtrip(tmp_path, synth_traj):
 def test_measurements_clamped_nonnegative(synth_traj, rng):
     cfg = SimConfig()
     est = generate_estimates(synth_traj, cfg)
-    from mfgp_tpu.fields.wrbf import random_field
+    from mfgp_jax.fields.wrbf import random_field
 
     field = random_field(rng, [[0, 10], [0, 20]], 10.0)
     meas = generate_field_measurements(est, field, cfg, rng)
@@ -156,7 +156,7 @@ def test_aggregate_reproduces_reference_means(tmp_path):
 def test_physical_config_surface():
     """Robot-run grids & pre-set hyps (SURVEY C26,
     reference/PhysicalExperimentCode/exploreExpSettings.py)."""
-    from mfgp_tpu.utils.configs import ExperimentConfig
+    from mfgp_jax.utils.configs import ExperimentConfig
 
     exp = ExperimentConfig()
     assert exp.erg_grid().shape == (21 * 11 * 5, 3)
@@ -168,7 +168,7 @@ def test_physical_config_surface():
     hyps = exp.physical_init_hyps_mf()
     assert hyps.shape == (17,)
     # loads straight into the MFGP param layout
-    from mfgp_tpu.models.mfgp import MFGPParams
+    from mfgp_jax.models.mfgp import MFGPParams
 
     p = MFGPParams.from_vector(hyps, 3, 3)
     np.testing.assert_allclose(np.asarray(p.rhos), [1.0, 1.0])
@@ -192,7 +192,7 @@ def test_run_settings_artifact(tmp_path, synth_traj):
 def test_batched_estimates_match_serial(synth_traj):
     """vmapped sweep filtering must reproduce the serial path per
     trajectory (same seeds -> identical rows)."""
-    from mfgp_tpu.data import generate_estimates_batch
+    from mfgp_jax.data import generate_estimates_batch
 
     cfg = SimConfig(seed=7, vmn=0.1)
     # two different-length trajectories
@@ -208,7 +208,7 @@ def test_batched_estimates_match_serial(synth_traj):
 def test_study_driver_end_to_end(tmp_path):
     """run_study produces the full reference artifact tree + aggregation
     (tiny configuration for speed; fit quality is covered elsewhere)."""
-    from mfgp_tpu.data.study import run_study
+    from mfgp_jax.data.study import run_study
 
     rep = run_study(str(tmp_path), traj_seeds=(0,), vmn_levels=(0.1,),
                     field_seeds=(0,), duration=300.0, optimize=False)
@@ -225,7 +225,7 @@ def test_study_driver_end_to_end(tmp_path):
 def test_batched_estimates_match_per_file(synth_traj):
     """generate_estimates_batch (one vmapped scan over the sweep) equals
     the per-file filter row for row, including ragged lengths."""
-    from mfgp_tpu.data.pipeline import (generate_estimates,
+    from mfgp_jax.data.pipeline import (generate_estimates,
                                         generate_estimates_batch)
 
     cfg = SimConfig(seed=3, vmn=0.1)
@@ -247,8 +247,8 @@ def test_batched_study_matches_per_run(tmp_path, synth_traj):
     files."""
     import glob
 
-    from mfgp_tpu.data.study_batched import process_datasets_batched
-    from mfgp_tpu.data.trainers import process_dataset
+    from mfgp_jax.data.study_batched import process_datasets_batched
+    from mfgp_jax.data.trainers import process_dataset
 
     paths, settings = [], []
     for seed, vmn in ((1, 0.1), (2, 0.2)):
@@ -299,7 +299,7 @@ def test_batched_study_overlapped_repairs(tmp_path, synth_traj,
     eval (the repair recomputes the same posterior in f64)."""
     import jax.numpy as jnp
 
-    from mfgp_tpu.data import study_batched as sb
+    from mfgp_jax.data import study_batched as sb
 
     paths, settings = [], []
     for seed, vmn in ((1, 0.1),):

@@ -9,11 +9,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mfgp_tpu.metrics.eid import expected_information_density
-from mfgp_tpu.models.gp import GP, GPParams, nlml
-from mfgp_tpu.models.mfgp import MFGP
-from mfgp_tpu.sim.explore import ExplorationSim
-from mfgp_tpu.utils.configs import ExperimentConfig
+from mfgp_jax.metrics.eid import expected_information_density
+from mfgp_jax.models.gp import GP, GPParams, nlml
+from mfgp_jax.models.mfgp import MFGP
+from mfgp_jax.sim.explore import ExplorationSim
+from mfgp_jax.utils.configs import ExperimentConfig
 
 
 def test_nlml_nonfinite_maps_to_penalty(rng):
@@ -97,7 +97,7 @@ def test_empty_and_tiny_fidelity_groups(rng):
 def test_sim_survives_constant_field(rng):
     """A zero-information field (constant measurements) must not break the
     replan loop (softmax of a constant EID is uniform)."""
-    from mfgp_tpu.fields.wrbf import WRBFField
+    from mfgp_jax.fields.wrbf import WRBFField
 
     flat = WRBFField(p=jnp.zeros((1, 3)), L=jnp.asarray(0.0),
                      s=jnp.asarray(1.0), w=jnp.ones(3))
@@ -113,7 +113,7 @@ def test_wmse_singular_covariance_recovers(rng):
     GPData_0.2_fieldMeas_0_T1_0)."""
     import jax.numpy as jnp
 
-    from mfgp_tpu.ops.linalg import weighted_mse
+    from mfgp_jax.ops.linalg import weighted_mse
 
     n = 40
     u = rng.normal(size=(n, 2))

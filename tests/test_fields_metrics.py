@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import pytest
 import scipy.stats
 
-from mfgp_tpu.fields import (WRBFField, random_field, write_field_settings,
+from mfgp_jax.fields import (WRBFField, random_field, write_field_settings,
                              parse_field_settings)
-from mfgp_tpu.fields.wrbf import default_sim_field
-from mfgp_tpu.metrics import (softmax, config_grid, trajectory_distribution,
+from mfgp_jax.fields.wrbf import default_sim_field
+from mfgp_jax.metrics import (softmax, config_grid, trajectory_distribution,
                               kl_divergence, gaussian_sensor,
                               expected_information_density,
                               config_k, basis_norms, sobolev_weights,

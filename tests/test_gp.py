@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mfgp_tpu.models import gp as gpm
+from mfgp_jax.models import gp as gpm
 
 
 def np_rbf(X1, X2, var, ls):
@@ -113,7 +113,7 @@ def test_optimize_restarts_matches_scipy_quality(rng):
     host-loop optimum on a small problem."""
     X = rng.uniform(0, 5, (40, 2))
     y = np.sin(X[:, 0]) + 0.1 * rng.standard_normal(40)
-    from mfgp_tpu.models.gp import GP
+    from mfgp_jax.models.gp import GP
 
     g1 = GP(X, y, jitter=1e-8)
     f_scipy = g1.optimize()
@@ -128,7 +128,7 @@ def test_optimize_restarts_matches_scipy_quality(rng):
 def test_gp_analytic_gradient_matches_autodiff(rng):
     import jax
 
-    from mfgp_tpu.models import gp as g
+    from mfgp_jax.models import gp as g
 
     X = jnp.asarray(rng.uniform(0, 10, (50, 3)))
     y = jnp.asarray(np.sin(np.asarray(X).sum(1)))
@@ -147,7 +147,7 @@ def test_gp_analytic_gradient_matches_autodiff(rng):
 
 def test_extend_data_matches_full_recondition(rng):
     """Online bordered-block conditioning == full refactorization."""
-    from mfgp_tpu.models.gp import GP
+    from mfgp_jax.models.gp import GP
 
     X = rng.uniform(0, 10, (30, 3))
     y = np.sin(X.sum(1))
@@ -165,7 +165,7 @@ def test_extend_data_matches_full_recondition(rng):
 
 
 def test_gp_value_grad_state_shares_factorization(rng):
-    from mfgp_tpu.models import gp as g
+    from mfgp_jax.models import gp as g
 
     X = rng.uniform(0, 10, (30, 3))
     y = np.sin(X.sum(1))
@@ -185,7 +185,7 @@ def test_gp_inv_state_path_matches_standard(rng):
     predict_blocked_inv) matches the substitution path at f64."""
     import jax
 
-    from mfgp_tpu.models import gp as gpm
+    from mfgp_jax.models import gp as gpm
 
     N, D, M = 50, 3, 23
     X = rng.normal(size=(N, D))

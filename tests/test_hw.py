@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from mfgp_tpu.hw import (KPID, PID, AprilFusion, AprilFusionConfig,
+from mfgp_jax.hw import (KPID, PID, AprilFusion, AprilFusionConfig,
                          SimulatedRobotIO, TagDetection, angle_wrap,
                          gps_bearing_distance, m0_to_act_pos, rp1_to_act_pos,
                          saturate, tail_wave, vec_to_tf, tf_to_vec,
                          yaw_correction, zyx_rotm)
-from mfgp_tpu.hw.apriltag import rotm_to_euler, rp_to_tf
+from mfgp_jax.hw.apriltag import rotm_to_euler, rp_to_tf
 
 
 def test_saturate_and_angle_wrap():
@@ -114,7 +114,7 @@ def test_simulated_robot_io_surface():
 def test_reference_trajectories():
     """Named curves (SURVEY C26 backsteppingConfig): shapes, bounds,
     workspace scaling."""
-    from mfgp_tpu.hw.trajectories import (TRAJECTORIES,
+    from mfgp_jax.hw.trajectories import (TRAJECTORIES,
                                           reference_trajectory,
                                           scale_to_workspace)
 
@@ -150,7 +150,7 @@ def test_april_fusion_yaw_wrap_stability():
 def test_fids_from_variance_general_f():
     """Generalized fidelity binning (code-review finding: the old copies
     hardcoded F=3)."""
-    from mfgp_tpu.planning.scoring import fids_from_variance
+    from mfgp_jax.planning.scoring import fids_from_variance
 
     # F=3, reference semantics
     np.testing.assert_array_equal(

@@ -9,10 +9,10 @@ identity 0.5 log(|K_prior|/|K_post|) == sum of sequential terms must hold.
 import numpy as np
 import jax.numpy as jnp
 
-from mfgp_tpu.metrics.info_gain import (sequential_gain_from_cov,
+from mfgp_jax.metrics.info_gain import (sequential_gain_from_cov,
                                         sequential_gain_cross,
                                         batch_logdet_gain, logdet)
-from mfgp_tpu.models import gp as gpm
+from mfgp_jax.models import gp as gpm
 
 
 def np_rbf(X1, X2, var, ls):
@@ -84,7 +84,7 @@ def test_mutual_information_identity(rng):
     of sequential latent-conditional terms; the reference's predictive-variance
     sequential sum (reference/informationGainTest.py:37-53) approximates it.
     """
-    from mfgp_tpu.metrics.info_gain import exact_mutual_information
+    from mfgp_jax.metrics.info_gain import exact_mutual_information
 
     X = rng.uniform(-3, 3, (10, 1))
     var, ls, noise = 0.74, np.array([1.57]), 0.001
@@ -152,8 +152,8 @@ def test_mf_sequential_matches_refit_loop(rng):
     reference/GraceRIGV3.py:525-562): condition on each path point at its
     accrued-variance fidelity with a dummy observation, predict the next
     at fidelity 0, accumulate log(1 + v/noise_0)."""
-    from mfgp_tpu.models.mfgp import MFGP
-    from mfgp_tpu.planning.scoring import MFInfoGainCost
+    from mfgp_jax.models.mfgp import MFGP
+    from mfgp_jax.planning.scoring import MFInfoGainCost
 
     X = rng.uniform(0, 10, (25, 3))
     y = np.sin(X.sum(1))

@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mfgp_tpu.estimation import kalman as kf
+from mfgp_jax.estimation import kalman as kf
 
 
 def np_kf_update(x, P, z, H, R):

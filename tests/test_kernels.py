@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from mfgp_tpu.ops import kernels as k
+from mfgp_jax.ops import kernels as k
 
 
 def np_rbf(X1, X2, var, ls):
@@ -100,7 +100,7 @@ def test_ar1_weights_rho_zero_no_nan():
     0/0 NaNs of a cumprod-ratio formulation (code-review finding)."""
     import jax.numpy as jnp
 
-    from mfgp_tpu.ops.kernels import ar1_fidelity_weights
+    from mfgp_jax.ops.kernels import ar1_fidelity_weights
 
     W = np.asarray(ar1_fidelity_weights(jnp.asarray([0.0, 0.5]), 3))
     assert np.isfinite(W).all()

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import scipy.linalg
 
-from mfgp_tpu.ops import linalg as la
+from mfgp_jax.ops import linalg as la
 
 
 def _spd(rng, n):
@@ -84,7 +84,7 @@ def test_rmse():
 def test_chol_solve_blocked_matches_dense(rng):
     import jax.numpy as jnp
 
-    from mfgp_tpu.ops.linalg import chol, chol_solve, chol_solve_blocked
+    from mfgp_jax.ops.linalg import chol, chol_solve, chol_solve_blocked
 
     n = 300
     A = rng.normal(size=(n, n))
@@ -102,11 +102,11 @@ def test_chol_solve_blocked_matches_dense(rng):
 
 def test_structure_aware_triangular_kernels(rng):
     """tri_inv_recursive / tri_lower_matmul(+right) / syrk_tri_lower /
-    chol_inverse: the structure-aware MXU kernels behind the bench's
+    chol_inverse: the structure-aware matmul kernels behind the bench's
     explicit-inverse fast path, vs dense references."""
     import jax.numpy as jnp
 
-    from mfgp_tpu.ops.linalg import (chol, chol_inverse, syrk_tri_lower,
+    from mfgp_jax.ops.linalg import (chol, chol_inverse, syrk_tri_lower,
                                      tri_inv_recursive, tri_lower_matmul,
                                      tri_lower_matmul_right)
 

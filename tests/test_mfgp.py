@@ -4,7 +4,7 @@ import jax
 import numpy as np
 import jax.numpy as jnp
 
-from mfgp_tpu.models import mfgp as mf
+from mfgp_jax.models import mfgp as mf
 
 
 def np_rbf(X1, X2, var, ls):
@@ -117,7 +117,7 @@ def test_mf_uses_low_fidelity_information(rng):
     mu, _ = model.predict(Xt)
     err_mf = np.sqrt(np.mean((np.asarray(mu) - f_true(Xt)) ** 2))
     # a high-fid-only GP with the same hyps has no data near x in [7, 9]
-    from mfgp_tpu.models import gp as gpm
+    from mfgp_jax.models import gp as gpm
     sf = gpm.GP(X_hi, y_hi)
     sf.set_param_array(np.array([1.0, 2.0, 2.0, 2.0, 0.001]))
     mu_sf, _ = sf.predict(Xt)
@@ -129,7 +129,7 @@ def test_mfgp_optimize_restarts(rng):
     X = rng.uniform(0, 5, (36, 2))
     y = np.sin(X[:, 0]) + 0.05 * rng.standard_normal(36)
     fid = rng.integers(0, 3, 36)
-    from mfgp_tpu.models.mfgp import MFGP
+    from mfgp_jax.models.mfgp import MFGP
 
     m = MFGP(X, fid, y, jitter=1e-8)
     f0 = -m.log_likelihood()

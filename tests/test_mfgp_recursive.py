@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from mfgp_tpu.models.mfgp import MFGP
-from mfgp_tpu.models.mfgp_recursive import RecursiveMFGP
+from mfgp_jax.models.mfgp import MFGP
+from mfgp_jax.models.mfgp_recursive import RecursiveMFGP
 
 
 @pytest.fixture
@@ -44,7 +44,7 @@ def test_matches_joint_ar1_on_nested_noiseless(nested, rng):
 def test_trained_recursive_beats_single_fidelity(nested, rng):
     """With few high-fidelity points, fusing the low-fidelity level must
     beat an SFGP trained on the high-fidelity points alone."""
-    from mfgp_tpu.models.gp import GP
+    from mfgp_jax.models.gp import GP
 
     Xs_list, ys_list = nested
     truth = lambda x: (np.sin(x[:, 0]) + 0.3 * np.cos(x[:, 1])

@@ -6,8 +6,8 @@ import time
 import numpy as np
 import pytest
 
-from mfgp_tpu import native
-from mfgp_tpu.utils.profiling import PhaseTimer, device_trace, timed
+from mfgp_jax import native
+from mfgp_jax.utils.profiling import PhaseTimer, device_trace, timed
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +46,7 @@ def test_native_reference_dataset_parity(built):
 
 
 def test_io_layer_uses_native_transparently(built, tmp_path, rng):
-    from mfgp_tpu.data.io import Table, load_table
+    from mfgp_jax.data.io import Table, load_table
 
     t = Table(["t", "x"], rng.normal(size=(20, 2)))
     t.save(str(tmp_path / "t.csv"))

@@ -7,7 +7,7 @@ Mirrors the reference's own informal self-check (reference/NIGP.py:339-365:
 import numpy as np
 import jax.numpy as jnp
 
-from mfgp_tpu.models import nigp as nm
+from mfgp_jax.models import nigp as nm
 
 
 def np_rbf(X1, X2, var, ls):
@@ -115,7 +115,7 @@ def test_native_fit_recovers_input_noise(rng):
     """fit_native (fully-coupled jax.grad objective, no alternating loop)
     must recover sigma_x comparably to the alternating parity mode on the
     reference's own self-check setup (reference/NIGP.py:339-365)."""
-    from mfgp_tpu.models.nigp import NIGP
+    from mfgp_jax.models.nigp import NIGP
 
     N = 100
     X = np.sort(rng.uniform(0, 10, N))[:, None]
@@ -131,7 +131,7 @@ def test_native_fit_recovers_input_noise(rng):
 
 
 def test_predict_blocked_matches_predict(rng):
-    """The explicit-inverse blocked path (tri_inv + MXU matmuls, the
+    """The explicit-inverse blocked path (tri_inv + matmuls, the
     GP/MFGP predict_blocked_inv pattern) equals the tri_solve marginal
     path to near-machine precision, across block boundaries."""
     N = 60

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from mfgp_tpu.estimation.observers import (BodyVelocityObserver,
+from mfgp_jax.estimation.observers import (BodyVelocityObserver,
                                            GliderParams, body_velocity_observer,
                                            buoyancy_mass, euler_rate_matrix,
                                            euler_to_rotm, flow_frame,

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mfgp_tpu.ops.optimize import batched_lbfgs
+from mfgp_jax.ops.optimize import batched_lbfgs
 
 
 def _quad(x):

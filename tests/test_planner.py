@@ -4,11 +4,11 @@ scoring equivalence, graph persistence (SURVEY §4 test pyramid #4)."""
 import numpy as np
 import pytest
 
-from mfgp_tpu.fields.wrbf import default_sim_field
-from mfgp_tpu.metrics import expected_information_density
-from mfgp_tpu.metrics.eid import eid_grid
-from mfgp_tpu.models import gp as gpm
-from mfgp_tpu.planning import (AgentConfig, ErgodicCost, RIGPlanner,
+from mfgp_jax.fields.wrbf import default_sim_field
+from mfgp_jax.metrics import expected_information_density
+from mfgp_jax.metrics.eid import eid_grid
+from mfgp_jax.models import gp as gpm
+from mfgp_jax.planning import (AgentConfig, ErgodicCost, RIGPlanner,
                                SFInfoGainCost)
 
 
@@ -128,9 +128,9 @@ def test_mf_batch_logdet_matches_refit_oracle(rng):
     reference/PhysicalExperimentCode/GraceRIGV3.py:599-617)."""
     import jax.numpy as jnp
 
-    from mfgp_tpu.models.mfgp import MFGP
-    from mfgp_tpu.ops import linalg as la
-    from mfgp_tpu.planning.scoring import MFBatchLogDetCost
+    from mfgp_jax.models.mfgp import MFGP
+    from mfgp_jax.ops import linalg as la
+    from mfgp_jax.planning.scoring import MFBatchLogDetCost
 
     X = rng.uniform(0, 10, (40, 3))
     y = np.sin(X.sum(1))
@@ -160,8 +160,8 @@ def test_mf_batch_logdet_matches_refit_oracle(rng):
 def test_graph_traversals(rng):
     """DFS/BFS/search/childless over a planned graph
     (reference/GraceRIGV3.py:1367-1453)."""
-    from mfgp_tpu.planning.primitives import AgentConfig
-    from mfgp_tpu.planning.rig import RIGPlanner
+    from mfgp_jax.planning.primitives import AgentConfig
+    from mfgp_jax.planning.rig import RIGPlanner
 
     p = RIGPlanner(cfg=AgentConfig.sim_defaults(), delta=10, B=150,
                    WS=np.array([[0, 10], [0, 20]]), R=1.25, Rd=5,
@@ -183,8 +183,8 @@ def test_fourier_ergodic_cost_ranks_coverage(rng):
     """Spectral ergodic cost (SURVEY C11, wired as a planner cost): a
     trajectory through the EID mass must outrank one far from it, and
     batch scores must equal singles."""
-    from mfgp_tpu.metrics.eid import eid_grid
-    from mfgp_tpu.planning import FourierErgodicCost
+    from mfgp_jax.metrics.eid import eid_grid
+    from mfgp_jax.planning import FourierErgodicCost
 
     grid = eid_grid([[0, 10], [0, 20]], 10.0)
     d2 = ((grid - np.array([7, 14, 5])) ** 2).sum(1)
@@ -204,8 +204,8 @@ def test_fourier_ergodic_cost_ranks_coverage(rng):
 
 def test_fourier_ergodic_in_sim_loop():
     """The spectral metric drives the closed loop end to end."""
-    from mfgp_tpu.sim import ExplorationSim
-    from mfgp_tpu.utils.configs import ExperimentConfig
+    from mfgp_jax.sim import ExplorationSim
+    from mfgp_jax.utils.configs import ExperimentConfig
 
     exp = ExperimentConfig(multi_fidelity=False, ergodic=True,
                            ergodic_metric="fourier", B=10, BD=1)

@@ -5,8 +5,8 @@ import math
 import numpy as np
 import pytest
 
-from mfgp_tpu.planning import primitives as pr
-from mfgp_tpu.planning.primitives import AgentConfig, Leg
+from mfgp_jax.planning import primitives as pr
+from mfgp_jax.planning.primitives import AgentConfig, Leg
 
 
 @pytest.fixture

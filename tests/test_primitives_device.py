@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mfgp_tpu.planning import primitives as host
-from mfgp_tpu.planning.primitives import AgentConfig, Leg
-from mfgp_tpu.planning.primitives_device import (
+from mfgp_jax.planning import primitives as host
+from mfgp_jax.planning.primitives import AgentConfig, Leg
+from mfgp_jax.planning.primitives_device import (
     NOOP, evaluate_trajectory_device, generate_trajectories_batch,
     generate_trajectory_device, padded_to_prims)
 

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mfgp_tpu.metrics.eid import eid_grid
-from mfgp_tpu.planning.primitives import AgentConfig
-from mfgp_tpu.planning.rig_device import DeviceRIG
-from mfgp_tpu.planning.scoring import ErgodicCost
+from mfgp_jax.metrics.eid import eid_grid
+from mfgp_jax.planning.primitives import AgentConfig
+from mfgp_jax.planning.rig_device import DeviceRIG
+from mfgp_jax.planning.scoring import ErgodicCost
 
 
 @pytest.fixture(scope="module")
@@ -78,8 +78,8 @@ def test_sim_device_planner_backend():
     """ExplorationSim(planner_backend="device"): the closed loop runs with
     the one-launch planner, gathers data within budget, and reuses ONE
     compiled executable across replans (B/EID are traced arguments)."""
-    from mfgp_tpu.sim import ExplorationSim
-    from mfgp_tpu.utils.configs import ExperimentConfig
+    from mfgp_jax.sim import ExplorationSim
+    from mfgp_jax.utils.configs import ExperimentConfig
 
     # the device planner explores less per iteration than the host (single
     # near-node phase, beam-capped path sets), so give it more iterations —
@@ -117,7 +117,7 @@ def test_plan_ensemble_sharded_over_mesh(setup):
     """The ensemble axis shards over the mesh's dp dimension with zero
     collectives (independent instances) — identical result to the
     unsharded ensemble for the same keys."""
-    from mfgp_tpu.parallel import make_mesh
+    from mfgp_jax.parallel import make_mesh
 
     _, _, _, _, planner = setup
     mesh = make_mesh(8)
@@ -169,7 +169,7 @@ def test_near_neighbors_phases(setup):
 
 
 def test_plot_device_plan(setup, tmp_path):
-    from mfgp_tpu.viz import (plot_device_plan, plot_path_3d,
+    from mfgp_jax.viz import (plot_device_plan, plot_path_3d,
                               plot_plan_animation)
 
     _, WS, _, _, planner = setup
@@ -194,8 +194,8 @@ def test_device_planner_dynamic_flight():
     primitive chains are flown by the full sense->estimate->control
     runtime (the adapter rebuilds the runtime flight plan from the
     extracted edge chain)."""
-    from mfgp_tpu.sim import ExplorationSim
-    from mfgp_tpu.utils.configs import ExperimentConfig
+    from mfgp_jax.sim import ExplorationSim
+    from mfgp_jax.utils.configs import ExperimentConfig
 
     exp = ExperimentConfig(multi_fidelity=False, ergodic=True, B=16, BD=2)
     sim = ExplorationSim(exp, seed=0, plan_iters=32, flight="dynamic",
@@ -213,9 +213,9 @@ def test_device_gain_mode_matches_host_scorer(setup, rng):
     """cost='sf_gain': the device planner's sequential-entropy score for
     its best path equals the host SFInfoGainCost on the SAME points (the
     closed form is identical; padded train state is exact)."""
-    from mfgp_tpu.models.gp import GP
-    from mfgp_tpu.planning.rig_device import prepare_sf_gain_state
-    from mfgp_tpu.planning.scoring import SFInfoGainCost
+    from mfgp_jax.models.gp import GP
+    from mfgp_jax.planning.rig_device import prepare_sf_gain_state
+    from mfgp_jax.planning.scoring import SFInfoGainCost
 
     cfg, WS, _, _, _ = setup
     X = rng.uniform([0, 0, 0], [10, 20, 5], (40, 3))
@@ -243,11 +243,11 @@ def test_device_gain_mode_matches_host_scorer(setup, rng):
 def test_device_gain_padded_state_exact(rng):
     """prepare_sf_gain_state: padded posterior == unpadded (dummy rows at
     the far sentinel contribute nothing)."""
-    from mfgp_tpu.metrics.info_gain import sequential_gain_from_cov
-    from mfgp_tpu.models.gp import GP
-    from mfgp_tpu.ops import kernels as _k
-    from mfgp_tpu.ops import linalg as _la
-    from mfgp_tpu.planning.rig_device import prepare_sf_gain_state
+    from mfgp_jax.metrics.info_gain import sequential_gain_from_cov
+    from mfgp_jax.models.gp import GP
+    from mfgp_jax.ops import kernels as _k
+    from mfgp_jax.ops import linalg as _la
+    from mfgp_jax.planning.rig_device import prepare_sf_gain_state
 
     X = rng.uniform(0, 10, (30, 3))
     y = np.sin(X[:, 0])
@@ -270,8 +270,8 @@ def test_device_gain_padded_state_exact(rng):
 def test_sim_device_sfgp_gain_backend():
     """SFGP variant (info-gain, single-fidelity) on the device planner:
     closed loop runs end-to-end with gain-mode scoring."""
-    from mfgp_tpu.sim import ExplorationSim
-    from mfgp_tpu.utils.configs import ExperimentConfig
+    from mfgp_jax.sim import ExplorationSim
+    from mfgp_jax.utils.configs import ExperimentConfig
 
     exp = ExperimentConfig(multi_fidelity=False, ergodic=False, B=16, BD=2)
     sim = ExplorationSim(exp, seed=0, plan_iters=32,
@@ -291,9 +291,9 @@ def test_sim_device_sfgp_gain_backend():
 def test_device_mf_gain_matches_host_scorer(setup, rng):
     """cost='mf_gain': device best-path score == host MFInfoGainCost on
     the same points + accrued-variance fidelity labels."""
-    from mfgp_tpu.models.mfgp import MFGP
-    from mfgp_tpu.planning.rig_device import prepare_mf_gain_state
-    from mfgp_tpu.planning.scoring import MFInfoGainCost
+    from mfgp_jax.models.mfgp import MFGP
+    from mfgp_jax.planning.rig_device import prepare_mf_gain_state
+    from mfgp_jax.planning.scoring import MFInfoGainCost
 
     cfg, WS, _, _, _ = setup
     cfg2 = AgentConfig.sim_defaults()
@@ -315,8 +315,8 @@ def test_device_mf_gain_matches_host_scorer(setup, rng):
     assert np.isfinite(res.info) and res.points.shape[0] > 0
 
     # reconstruct the scored point set (xyz + accrued var) from the chain
-    from mfgp_tpu.planning.primitives_device import padded_to_prims
-    from mfgp_tpu.planning import primitives as hostprim
+    from mfgp_jax.planning.primitives_device import padded_to_prims
+    from mfgp_jax.planning import primitives as hostprim
     rows = []
     for padded, src_xy, dst_xy in res.edges:
         prims = padded_to_prims(padded)
@@ -339,8 +339,8 @@ def test_device_mf_gain_matches_host_scorer(setup, rng):
 
 def test_sim_device_mfgp_gain_backend():
     """MFGP variant (info-gain, multi-fidelity) on the device planner."""
-    from mfgp_tpu.sim import ExplorationSim
-    from mfgp_tpu.utils.configs import ExperimentConfig
+    from mfgp_jax.sim import ExplorationSim
+    from mfgp_jax.utils.configs import ExperimentConfig
 
     exp = ExperimentConfig(multi_fidelity=True, ergodic=False, B=16, BD=2)
     sim = ExplorationSim(exp, seed=0, plan_iters=32,
@@ -356,9 +356,9 @@ def test_sim_device_mfgp_gain_backend():
 def test_device_gain_matern32_matches_host(setup, rng):
     """Gain mode honors the configured kernel (matern32 — the physical
     drivers' kernel, configs.py): parity with the host scorer."""
-    from mfgp_tpu.models.gp import GP
-    from mfgp_tpu.planning.rig_device import prepare_sf_gain_state
-    from mfgp_tpu.planning.scoring import SFInfoGainCost
+    from mfgp_jax.models.gp import GP
+    from mfgp_jax.planning.rig_device import prepare_sf_gain_state
+    from mfgp_jax.planning.scoring import SFInfoGainCost
 
     cfg, WS, _, _, _ = setup
     X = rng.uniform([0, 0, 0], [10, 20, 5], (30, 3))
@@ -383,8 +383,8 @@ def test_gain_mode_reaches_deep_budget_band(setup, rng):
     band (cutoff 0.5 of a large B needing many chained edges) the planner
     must still reach it. Low-budget preference starved accumulation and
     returned -inf here (regression)."""
-    from mfgp_tpu.models.gp import GP
-    from mfgp_tpu.planning.rig_device import prepare_sf_gain_state
+    from mfgp_jax.models.gp import GP
+    from mfgp_jax.planning.rig_device import prepare_sf_gain_state
 
     cfg, WS, _, _, _ = setup
     X = rng.uniform([0, 0, 0], [10, 20, 5], (40, 3))
@@ -405,7 +405,7 @@ def test_device_fourier_matches_host_cost(setup):
     host FourierErgodicCost exactly on the SAME extracted waypoints (the
     reference's own incremental merge is exact,
     reference/PhysicalExperimentCode/ergodicMetric.py:89-96)."""
-    from mfgp_tpu.planning.scoring import FourierErgodicCost
+    from mfgp_jax.planning.scoring import FourierErgodicCost
 
     cfg, WS, grid, eid, _ = setup
     bounds = np.array([[0.0, 10.0], [0.0, 20.0], [0.0, cfg.max_depth]])
@@ -425,8 +425,8 @@ def test_device_fourier_matches_host_cost(setup):
 def test_sim_device_fourier_backend():
     """ergodic_metric='fourier' + device backend: the closed loop plans
     with the spectral cost fully on-device."""
-    from mfgp_tpu.sim import ExplorationSim
-    from mfgp_tpu.utils.configs import ExperimentConfig
+    from mfgp_jax.sim import ExplorationSim
+    from mfgp_jax.utils.configs import ExperimentConfig
 
     exp = ExperimentConfig(multi_fidelity=False, ergodic=True, B=16, BD=2,
                            ergodic_metric="fourier")
@@ -453,10 +453,10 @@ def test_gain_score_everything_outcome(rng):
     stick: resampled to the same number of uniform-in-time points and
     scored with the same host SFInfoGainCost. Measured ratio at these
     settings: 1.004 (r3 calibration; bound set at 0.95)."""
-    from mfgp_tpu.models.gp import GP
-    from mfgp_tpu.planning.rig import RIGPlanner
-    from mfgp_tpu.planning.rig_device import prepare_sf_gain_state
-    from mfgp_tpu.planning.scoring import SFInfoGainCost
+    from mfgp_jax.models.gp import GP
+    from mfgp_jax.planning.rig import RIGPlanner
+    from mfgp_jax.planning.rig_device import prepare_sf_gain_state
+    from mfgp_jax.planning.scoring import SFInfoGainCost
 
     cfg = AgentConfig.sim_defaults()
     cfg.traj_count = 3
@@ -497,9 +497,9 @@ def test_gain_cap_is_feasibility_not_truncation(setup, rng):
     """max_path_points is a hard capacity: paths never exceed it, scores
     are never computed on an overwritten/truncated point set, and
     ``truncated`` never fires (VERDICT r2 weak #2 regression)."""
-    from mfgp_tpu.models.gp import GP
-    from mfgp_tpu.planning.rig_device import prepare_sf_gain_state
-    from mfgp_tpu.planning.scoring import SFInfoGainCost
+    from mfgp_jax.models.gp import GP
+    from mfgp_jax.planning.rig_device import prepare_sf_gain_state
+    from mfgp_jax.planning.scoring import SFInfoGainCost
 
     cfg, WS, _, _, _ = setup
     X = rng.uniform([0, 0, 0], [10, 20, 5], (30, 3))
@@ -524,7 +524,7 @@ def test_gain_cap_is_feasibility_not_truncation(setup, rng):
 def test_graph_summary_reports_real_edge_counts(setup):
     """graph_summary()['edges'] is the feasibility-counter value from the
     loop state, not launch capacity (VERDICT r2 weak #6)."""
-    from mfgp_tpu.planning.rig_device import DeviceRIGAdapter
+    from mfgp_jax.planning.rig_device import DeviceRIGAdapter
 
     cfg, WS, grid, eid, _ = setup
     ad = DeviceRIGAdapter(seed=0, cfg=cfg, delta=2.0, B=20.0, WS=WS,
@@ -544,10 +544,10 @@ def test_device_sf_logdet_matches_host_scorer(setup, rng):
     information equals the host BatchLogDetCost on the SAME points
     (reference calcPathInfoSFBatch,
     reference/PhysicalExperimentCode/GraceRIGV3.py:571-598)."""
-    from mfgp_tpu.metrics.eid import eid_grid
-    from mfgp_tpu.models.gp import GP
-    from mfgp_tpu.planning.rig_device import prepare_sf_gain_state
-    from mfgp_tpu.planning.scoring import BatchLogDetCost
+    from mfgp_jax.metrics.eid import eid_grid
+    from mfgp_jax.models.gp import GP
+    from mfgp_jax.planning.rig_device import prepare_sf_gain_state
+    from mfgp_jax.planning.scoring import BatchLogDetCost
 
     cfg, WS, _, _, _ = setup
     grid = np.asarray(eid_grid([[0, 10], [0, 20]], 5.0, nums=(4, 5, 3)))
@@ -571,10 +571,10 @@ def test_device_mf_logdet_matches_host_scorer(setup, rng):
     """cost='mf_logdet': parity with the host MFBatchLogDetCost
     (reference calculatePathInfoEmuBatch, :599-617) on identical points +
     accrued-variance fidelity labels."""
-    from mfgp_tpu.metrics.eid import eid_grid
-    from mfgp_tpu.models.mfgp import MFGP
-    from mfgp_tpu.planning.rig_device import prepare_mf_gain_state
-    from mfgp_tpu.planning.scoring import MFBatchLogDetCost
+    from mfgp_jax.metrics.eid import eid_grid
+    from mfgp_jax.models.mfgp import MFGP
+    from mfgp_jax.planning.rig_device import prepare_mf_gain_state
+    from mfgp_jax.planning.scoring import MFBatchLogDetCost
 
     cfg, WS, _, _, _ = setup
     cfg2 = AgentConfig.sim_defaults()
@@ -597,8 +597,8 @@ def test_device_mf_logdet_matches_host_scorer(setup, rng):
 
     # reconstruct the accrued-variance labels from the edge chain (the
     # same per-edge rollout the mf_gain parity test uses)
-    from mfgp_tpu.planning import primitives as hostprim
-    from mfgp_tpu.planning.primitives_device import padded_to_prims
+    from mfgp_jax.planning import primitives as hostprim
+    from mfgp_jax.planning.primitives_device import padded_to_prims
     import math as _m
     rows = []
     for padded, src_xy, dst_xy in res.edges:
@@ -623,8 +623,8 @@ def test_sim_device_batch_logdet_backend():
     """info_cost='batch' + device backend: the closed loop plans with the
     carried-grid-covariance log-det cost fully on-device (the reference's
     physical SFGP driver scores with calcPathInfoSFBatch)."""
-    from mfgp_tpu.sim import ExplorationSim
-    from mfgp_tpu.utils.configs import ExperimentConfig
+    from mfgp_jax.sim import ExplorationSim
+    from mfgp_jax.utils.configs import ExperimentConfig
 
     exp = ExperimentConfig(multi_fidelity=False, ergodic=False, B=16, BD=2,
                            info_cost="batch")

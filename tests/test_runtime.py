@@ -12,11 +12,11 @@ import math
 import numpy as np
 import pytest
 
-from mfgp_tpu.hw.plant import GliderPlant, PlantParams
-from mfgp_tpu.hw.runtime import (FlightLog, RobotRuntime, RuntimeConfig,
+from mfgp_jax.hw.plant import GliderPlant, PlantParams
+from mfgp_jax.hw.runtime import (FlightLog, RobotRuntime, RuntimeConfig,
                                  flight_plan, mass_spd_control,
                                  pump_spd_control2, traj_point)
-from mfgp_tpu.planning.primitives import (AgentConfig, Leg,
+from mfgp_jax.planning.primitives import (AgentConfig, Leg,
                                           evaluate_trajectory,
                                           generate_trajectory)
 
@@ -104,7 +104,7 @@ def test_derived_tail_weight_matches_continuous_model():
     closed form w = tail_energy_scale * (k^2 + omega^2) / k^2 as dt -> 0
     (the estimator is a first-order lag: ddelta = k s/(s+k) delta, so
     E[ddelta^2]/E[delta_dot^2] = k^2/(k^2+omega^2))."""
-    from mfgp_tpu.hw.runtime import derived_tail_weight
+    from mfgp_jax.hw.runtime import derived_tail_weight
 
     cfg = AgentConfig.sim_defaults()
     k = 5.0
@@ -173,8 +173,8 @@ def test_exploration_sim_dynamic_flight_mfegp_end_to_end(tmp_path):
     closed-loop run flying through the dynamic runtime: plans are flown
     with real tracking error, samples are fidelity-binned from the live
     KF covariance, the model retrains, and artifacts are emitted."""
-    from mfgp_tpu.sim import ExplorationSim
-    from mfgp_tpu.utils.configs import ExperimentConfig
+    from mfgp_jax.sim import ExplorationSim
+    from mfgp_jax.utils.configs import ExperimentConfig
 
     exp = ExperimentConfig(multi_fidelity=True, ergodic=True, B=20.0, BD=2)
     sim = ExplorationSim(exp, seed=0, plan_iters=8, flight="dynamic",

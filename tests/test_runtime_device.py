@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mfgp_tpu.hw.runtime import RobotRuntime, RuntimeConfig
-from mfgp_tpu.hw.runtime_device import DeviceRuntime
-from mfgp_tpu.planning.primitives import (AgentConfig, Leg,
+from mfgp_jax.hw.runtime import RobotRuntime, RuntimeConfig
+from mfgp_jax.hw.runtime_device import DeviceRuntime
+from mfgp_jax.planning.primitives import (AgentConfig, Leg,
                                           evaluate_trajectory,
                                           generate_trajectory)
 

@@ -7,8 +7,8 @@ import threading
 import numpy as np
 import pytest
 
-from mfgp_tpu.models.gp import GP
-from mfgp_tpu.serve import ModelServer, make_http_server
+from mfgp_jax.models.gp import GP
+from mfgp_jax.serve import ModelServer, make_http_server
 
 
 @pytest.fixture(scope="module")
@@ -101,7 +101,7 @@ def test_concurrent_requests_batch_into_one_launch(rng_module):
 
 def test_multi_model_routing(rng_module):
     """ModelRouter: named-model routes + default + listing."""
-    from mfgp_tpu.serve import ModelRouter
+    from mfgp_jax.serve import ModelRouter
 
     X = rng_module.uniform(0, 10, (20, 3))
     srv_a = ModelServer(GP(X, np.sin(X[:, 0]), jitter=1e-8))
@@ -132,8 +132,8 @@ def test_multi_model_routing(rng_module):
 
 
 def test_server_from_checkpoint(tmp_path, rng_module):
-    from mfgp_tpu.serve import ModelServer
-    from mfgp_tpu.utils import checkpoint as ckpt
+    from mfgp_jax.serve import ModelServer
+    from mfgp_jax.utils import checkpoint as ckpt
 
     X = rng_module.uniform(0, 5, (20, 3))
     y = np.cos(X[:, 1])
@@ -169,8 +169,8 @@ def test_predict_full_cov(server_addr, rng_module):
 def test_nigp_checkpoint_serves(rng_module):
     """NIGP checkpoints serve too (its predict lacks include_noise /
     full_cov kwargs — spelled return_cov there)."""
-    from mfgp_tpu.models.nigp import NIGP
-    from mfgp_tpu.utils import checkpoint as ckpt
+    from mfgp_jax.models.nigp import NIGP
+    from mfgp_jax.utils import checkpoint as ckpt
 
     X = rng_module.uniform(0, 5, (25, 2))
     y = np.sin(X[:, 0])
@@ -191,7 +191,7 @@ def test_nigp_checkpoint_serves(rng_module):
 def test_plan_endpoint_ergodic(rng_module):
     """Replan-as-a-service: POST /plan runs the one-launch device planner
     against the served model's EID and returns a flyable path."""
-    from mfgp_tpu.serve import PlannerService
+    from mfgp_jax.serve import PlannerService
 
     X = np.column_stack([rng_module.uniform(0, 10, 25),
                          rng_module.uniform(0, 20, 25),
@@ -228,7 +228,7 @@ def test_plan_endpoint_ergodic(rng_module):
 def test_plan_endpoint_gain(rng_module):
     """sf_gain /plan conditions the sequential info gain on the served
     model's training set (prepare_sf_gain_state path)."""
-    from mfgp_tpu.serve import PlannerService
+    from mfgp_jax.serve import PlannerService
 
     X = np.column_stack([rng_module.uniform(0, 10, 20),
                          rng_module.uniform(0, 20, 20),
@@ -249,7 +249,7 @@ def test_concurrent_plans_coalesce_into_one_launch(rng_module):
     lanes of ONE vmapped planner launch (PlanBatchingQueue ->
     DeviceRIG.plan_batch), and each caller's result matches a solo
     request with the same (start, budget, seed)."""
-    from mfgp_tpu.serve import PlannerService
+    from mfgp_jax.serve import PlannerService
 
     X = np.column_stack([rng_module.uniform(0, 10, 25),
                          rng_module.uniform(0, 20, 25),
@@ -300,8 +300,8 @@ def test_concurrent_plans_coalesce_into_one_launch(rng_module):
 
 def test_plan_cost_model_mismatch(rng_module):
     """mf_gain needs an MFGP; NIGP lacks the conditioned state entirely."""
-    from mfgp_tpu.models.nigp import NIGP
-    from mfgp_tpu.serve import PlannerService
+    from mfgp_jax.models.nigp import NIGP
+    from mfgp_jax.serve import PlannerService
 
     X = rng_module.uniform(0, 5, (15, 3))
     y = np.sin(X[:, 0])
@@ -350,7 +350,7 @@ def test_extend_route_online_conditioning(rng_module):
 def test_extend_route_mfgp_fid(rng_module):
     """Multi-fidelity /extend requires per-point fid labels and grows the
     AR1 state; /eid stays a distribution on the grown model."""
-    from mfgp_tpu.models.mfgp import MFGP
+    from mfgp_jax.models.mfgp import MFGP
 
     Xl = [rng_module.uniform(0, 5, (12, 3)),
           rng_module.uniform(0, 5, (8, 3)),
@@ -374,7 +374,7 @@ def test_refit_route(rng_module):
     """/refit runs the device-batched restart fit on the served data and
     refreshes the inferred prior variance; models without the batched fit
     (NIGP) reject both mutation routes with a client error."""
-    from mfgp_tpu.models.nigp import NIGP
+    from mfgp_jax.models.nigp import NIGP
 
     X = rng_module.uniform(0, 10, (20, 3))
     y = np.sin(X[:, 0]) + 0.05 * rng_module.standard_normal(20)
@@ -401,7 +401,7 @@ def test_plan_cache_invalidation_on_extend(rng_module):
     """/extend invalidates the PlannerService's cached EID, so the next
     /plan scores against the updated posterior (the compiled planner
     executable is reused — the EID is a traced argument)."""
-    from mfgp_tpu.serve import PlannerService
+    from mfgp_jax.serve import PlannerService
 
     X = np.column_stack([rng_module.uniform(0, 10, 18),
                          rng_module.uniform(0, 20, 18),
@@ -432,7 +432,7 @@ def test_mission_service_warm_executable_reuse():
     jobs serialize on one worker; unknown routes/variants error."""
     import time
 
-    from mfgp_tpu.serve import MissionService
+    from mfgp_jax.serve import MissionService
 
     svc = MissionService()
     try:

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from mfgp_tpu.sim import ExplorationSim
-from mfgp_tpu.utils.configs import ExperimentConfig, SimConfig
+from mfgp_jax.sim import ExplorationSim
+from mfgp_jax.utils.configs import ExperimentConfig, SimConfig
 
 
 @pytest.fixture(scope="module")
@@ -57,7 +57,7 @@ def test_explore_artifacts(tmp_path):
 
 
 def test_cli_infogain_identity(capsys):
-    from mfgp_tpu.cli import main
+    from mfgp_jax.cli import main
 
     main(["infogain-test"])
     out = json.loads(capsys.readouterr().out.strip())
@@ -65,7 +65,7 @@ def test_cli_infogain_identity(capsys):
 
 
 def test_cli_explore_variant_mapping(capsys):
-    from mfgp_tpu.cli import main
+    from mfgp_jax.cli import main
 
     main(["explore", "--variant", "SFGP", "--budget", "8", "--bd", "1",
           "--plan-iters", "5"])
@@ -83,7 +83,7 @@ REF_GPDATA = ("/root/reference/Data/TrajectoriesAndEstimates/GPDataSets/"
 def test_cli_sfgp_reference_parity(capsys):
     """BASELINE config 1 end-to-end: RMSE within 0.01 of the recorded run
     (reference MSE_0.2_fieldMeas_0_T0_0.txt: RMSE sf 5.2475)."""
-    from mfgp_tpu.cli import main
+    from mfgp_jax.cli import main
 
     main(["sfgp", REF_GPDATA, "--field-settings",
           "/root/reference/Data/TrajectoriesAndEstimates/FieldData/"
@@ -105,7 +105,7 @@ def test_manual_variant_collects_and_trains(tmp_path):
     assert res.rmse is not None and res.rmse < 3.0
     assert (tmp_path / "manual_model.npz").exists()
     # the saved model restores and predicts
-    from mfgp_tpu.utils.checkpoint import load_checkpoint
+    from mfgp_jax.utils.checkpoint import load_checkpoint
 
     ck = load_checkpoint(str(tmp_path / "manual_model"))
     m = ck.model.restore()
@@ -152,7 +152,7 @@ def test_toy_dynamics_integrate():
     """rk4 + toy models (SURVEY C22's broken unused dynamics, working)."""
     import jax.numpy as jnp
 
-    from mfgp_tpu.sim.dynamics import (glider_simple, rk4_step,
+    from mfgp_jax.sim.dynamics import (glider_simple, rk4_step,
                                        single_integrator_3d, unicycle_3d)
 
     # single integrator moves linearly
@@ -195,8 +195,8 @@ def test_orbax_checkpoint_roundtrip(tmp_path):
     import jax
     import numpy as np
 
-    from mfgp_tpu.models.gp import GP
-    from mfgp_tpu.utils import checkpoint as ckpt
+    from mfgp_jax.models.gp import GP
+    from mfgp_jax.utils import checkpoint as ckpt
 
     rng = np.random.default_rng(0)
     X = rng.uniform(0, 5, (12, 3))

@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from mfgp_tpu.data.study import grid_samples, training_size_study
-from mfgp_tpu.hw import xbee
-from mfgp_tpu.utils.configs import SimConfig
+from mfgp_jax.data.study import grid_samples, training_size_study
+from mfgp_jax.hw import xbee
+from mfgp_jax.utils.configs import SimConfig
 
 REF_GPDATA = ("/root/reference/Data/TrajectoriesAndEstimates/GPDataSets/"
               "GPData_0.2_fieldMeas_0_T0_0.csv")
@@ -52,9 +52,9 @@ def test_replay_models_from_artifacts(tmp_path):
     trainer on this dataset, which matched the recorded RMSE sf 5.2475."""
     import jax.numpy as jnp
 
-    from mfgp_tpu.data.io import save_hyp_vector
-    from mfgp_tpu.fields.wrbf import parse_field_settings
-    from mfgp_tpu.viz import replay_grid, replay_models
+    from mfgp_jax.data.io import save_hyp_vector
+    from mfgp_jax.fields.wrbf import parse_field_settings
+    from mfgp_jax.viz import replay_grid, replay_models
 
     base = os.path.basename(REF_GPDATA).replace(".csv", "_")
     sf_hyps = [2.8981072, 23.0393967, 4.8672067, 9.1853363, 0.01608807]
@@ -78,7 +78,7 @@ def test_replay_models_from_artifacts(tmp_path):
 
 
 def test_plot_functions_render(tmp_path, rng):
-    from mfgp_tpu.viz import plot_csv, plot_field_slices
+    from mfgp_jax.viz import plot_csv, plot_field_slices
 
     grid = SimConfig().test_points()
     vals = rng.random(grid.shape[0])
@@ -92,7 +92,7 @@ def test_plot_functions_render(tmp_path, rng):
 
 
 def test_plot_average_errors(tmp_path):
-    from mfgp_tpu.viz import plot_average_errors
+    from mfgp_jax.viz import plot_average_errors
 
     rows = [{"RMSE mf": 1.0, "RMSE sf": 2.0, "RMSE nisf": 1.5,
              "RMSE sfTP": 1.8, "velVariance": v}
@@ -107,10 +107,10 @@ def test_replay_all_four_model_kinds(tmp_path, rng):
     predictions (full C27 coverage incl. MFGP/NIGP)."""
     import jax.numpy as jnp
 
-    from mfgp_tpu.data.io import GPDATA_HEADER, Table, save_hyp_vector
-    from mfgp_tpu.data.trainers import train_models
-    from mfgp_tpu.fields.wrbf import default_sim_field
-    from mfgp_tpu.viz import replay_models
+    from mfgp_jax.data.io import GPDATA_HEADER, Table, save_hyp_vector
+    from mfgp_jax.data.trainers import train_models
+    from mfgp_jax.fields.wrbf import default_sim_field
+    from mfgp_jax.viz import replay_models
 
     field = default_sim_field([[0, 10], [0, 20]], 10.0)
     n = 40
@@ -123,7 +123,7 @@ def test_replay_all_four_model_kinds(tmp_path, rng):
     ds_path = tmp_path / "GPData_0.2_fieldMeas_0_T0_0.csv"
     Table(GPDATA_HEADER.split(","), rows).save(str(ds_path))
 
-    from mfgp_tpu.data.io import load_gp_dataset
+    from mfgp_jax.data.io import load_gp_dataset
 
     ds = load_gp_dataset(str(ds_path))
     models = train_models(ds, optimize=False)
@@ -154,7 +154,7 @@ def test_replay_all_four_model_kinds(tmp_path, rng):
 def test_plot_csv_with_string_columns(tmp_path):
     """results.csv-style files have a string filename column; plotting
     numeric columns from them must work (found in the final CLI sweep)."""
-    from mfgp_tpu.viz import plot_csv
+    from mfgp_jax.viz import plot_csv
 
     p = tmp_path / "r.csv"
     p.write_text("filename,RMSE sf,T\nMSE_a.txt,1.5,0\nMSE_b.txt,2.5,1\n")
@@ -164,9 +164,9 @@ def test_plot_csv_with_string_columns(tmp_path):
 
 def test_planner_graph_figures(tmp_path):
     """Headless planner drawing (reference draw_graph / draw_3D_path)."""
-    from mfgp_tpu.planning.primitives import AgentConfig
-    from mfgp_tpu.planning.rig import RIGPlanner
-    from mfgp_tpu.viz import plot_path_3d, plot_planner_graph
+    from mfgp_jax.planning.primitives import AgentConfig
+    from mfgp_jax.planning.rig import RIGPlanner
+    from mfgp_jax.viz import plot_path_3d, plot_planner_graph
 
     p = RIGPlanner(cfg=AgentConfig.sim_defaults(), delta=10, B=150,
                    WS=np.array([[0, 10], [0, 20]]), R=1.25, Rd=5,
@@ -181,7 +181,7 @@ def test_planner_graph_figures(tmp_path):
         assert os.path.getsize(f2) > 1000
     # frame-sequence animation of the graph growth (the reference draws
     # the graph live as it plans, reference/GraceRIGV3.py:1213-1216)
-    from mfgp_tpu.viz import plot_plan_animation
+    from mfgp_jax.viz import plot_plan_animation
 
     frames = plot_plan_animation(p, np.array([[0, 10], [0, 20]]),
                                  str(tmp_path / "anim"), n_frames=4)

@@ -1,8 +1,8 @@
 """Attribute DeviceRIG lane overhead at sim defaults (VERDICT r4 #4).
 
 At the sim-default edge mix (traj_count=3, 200 iters) an 8-lane
-``plan_batch`` costs ~695 ms vs ~150 ms best-solo = ~4.6x one plan,
-while at the richer traj_count=8 mix it is ~2x. This sweep varies ONE
+``plan_batch`` has cost several times one plan, and relatively less at
+the richer traj_count=8 mix. This sweep varies ONE
 knob at a time around the sim-default config and measures solo vs
 8-lane wall-clock, so the residual lane cost can be attributed:
 
@@ -13,7 +13,7 @@ knob at a time around the sim-default config and measures solo vs
 - if overhead is flat in G/S, the bookkeeping one-hot/gather arena ops
   (O(max_nodes), O(max_paths)) dominate — the lever is arena sizing.
 
-Run (TPU):  python tools/plan_lane_attrib.py
+Run (GPU):  python tools/plan_lane_attrib.py
 Outcome recorded in ROADMAP.md either way.
 """
 
@@ -35,9 +35,9 @@ def measure_config(iters=200, lanes=8, repeats=3, seed=0, traj_count=3,
     import jax
     import numpy as np
 
-    from mfgp_tpu.metrics.eid import eid_grid
-    from mfgp_tpu.planning.rig_device import DeviceRIG
-    from mfgp_tpu.utils.configs import SimConfig
+    from mfgp_jax.metrics.eid import eid_grid
+    from mfgp_jax.planning.rig_device import DeviceRIG
+    from mfgp_jax.utils.configs import SimConfig
 
     cfg_s = SimConfig()
     acfg = cfg_s.agent()

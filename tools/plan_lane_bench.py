@@ -1,9 +1,8 @@
-"""Measure DeviceRIG plan_batch lane scaling on the real TPU.
+"""Measure DeviceRIG plan_batch lane scaling on the accelerator.
 
-Produces the ROADMAP table for VERDICT r3 #2: solo / K=2/4/8 lanes at
-(a) sim-default edge mix (traj_count=3 — the light mix where one-hot/vmap
-overhead dominated at r3: 742 ms vs 159 ms solo = 4.7x) and (b) the
-richer r3 mix (traj_count=8).
+Solo / K=2/4/8 lanes at (a) the sim-default edge mix (traj_count=3 — the
+light mix where one-hot/vmap overhead dominates) and (b) the richer mix
+(traj_count=8).
 
   python tools/plan_lane_bench.py            # both mixes
   python tools/plan_lane_bench.py --iters 200 --lanes 1 2 4 8
@@ -28,9 +27,9 @@ def measure(traj_count: int, iters: int, lanes_list, repeats: int = 3,
     import jax
     import numpy as np
 
-    from mfgp_tpu.metrics.eid import eid_grid
-    from mfgp_tpu.planning.rig_device import DeviceRIG
-    from mfgp_tpu.utils.configs import SimConfig
+    from mfgp_jax.metrics.eid import eid_grid
+    from mfgp_jax.planning.rig_device import DeviceRIG
+    from mfgp_jax.utils.configs import SimConfig
 
     cfg_s = SimConfig()
     acfg = cfg_s.agent()

@@ -32,10 +32,10 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from mfgp_tpu.data import study_batched as sb
-    from mfgp_tpu.fields.wrbf import parse_field_settings
-    from mfgp_tpu.data.trainers import load_gp_dataset
-    from mfgp_tpu.utils.configs import SimConfig
+    from mfgp_jax.data import study_batched as sb
+    from mfgp_jax.fields.wrbf import parse_field_settings
+    from mfgp_jax.data.trainers import load_gp_dataset
+    from mfgp_jax.utils.configs import SimConfig
 
     cfg = SimConfig()
     dtype = jnp.float32
@@ -63,7 +63,7 @@ def main():
     X_sf = np.stack([d.X_est for d in datasets]).astype(np.float32)
     X_tp = np.stack([d.X_true for d in datasets]).astype(np.float32)
     y_b = np.stack([d.y for d in datasets]).astype(np.float32)
-    import mfgp_tpu.models.mfgp as mfm
+    import mfgp_jax.models.mfgp as mfm
 
     Xmf, fmf, ymf = [], [], []
     for d in datasets:
